@@ -28,12 +28,12 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-import cpprob_tpu as ct
-from cpprob_tpu.io import dump_posterior
-from cpprob_tpu.io.serialization import load_posterior
-from cpprob_tpu.io.tracefile import native_available
-from cpprob_tpu.models import hmm
-from cpprob_tpu.postprocess.stats import StatsPrinter
+import cpprob_jax as ct
+from cpprob_jax.io import dump_posterior
+from cpprob_jax.io.serialization import load_posterior
+from cpprob_jax.io.tracefile import native_available
+from cpprob_jax.models import hmm
+from cpprob_jax.postprocess.stats import StatsPrinter
 
 
 def main():

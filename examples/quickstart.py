@@ -21,9 +21,9 @@ import argparse
 import jax
 import numpy as np
 
-import cpprob_tpu as ct
-from cpprob_tpu.inference.csis import CSIS
-from cpprob_tpu.models import gaussian_unknown_mean_readme as model
+import cpprob_jax as ct
+from cpprob_jax.inference.csis import CSIS
+from cpprob_jax.models import gaussian_unknown_mean_readme as model
 
 
 def report(name, mean, var, extra=""):

@@ -5,12 +5,13 @@ a 35x35x20 voxel calorimeter with a CNN3D observation embedding
 (``src/models/sherpa.cpp:29-86``, ``src/models/calorimeter.cpp``,
 ``infcomp/nn/observation.py:56-93``) and reports ~1 trace/s compile
 throughput on a Titan X (thesis ch. 5).  This example runs the same
-structure at full volume on one TPU chip: train a CNN3D-embedded CSIS
+structure at full volume on one card: train a CNN3D-embedded CSIS
 proposal on the synthetic tau-decay calorimeter model, measure traces/s,
 then check the guided proposal identifies the decay channel from held-out
-volumes better than prior SIS.
+volumes better than prior SIS.  ``chip_smoke.py`` runs the training part
+(:func:`build_engine`, :func:`train`) for a few steps.
 
-Writes SHERPA_FULLSCALE.json at the repo root when --out is given.
+Writes a JSON record to --out when given.
 
 Usage:  python examples/sherpa_fullscale.py [--steps 300] [--quick]
 """
@@ -32,10 +33,38 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-import cpprob_tpu as ct
-from cpprob_tpu.core import handlers
-from cpprob_tpu.inference.csis import CSIS
-from cpprob_tpu.models.sherpa import sherpa_calorimeter_wrapper
+import cpprob_jax as ct
+from cpprob_jax.core import handlers
+from cpprob_jax.inference.csis import CSIS
+from cpprob_jax.models.sherpa import sherpa_calorimeter_wrapper
+
+
+def build_engine(bins, max_deposits):
+    """(CSIS engine with a CNN3D observation embedding, model) at volume
+    ``bins``.  The ABC temperature is a TRACED model argument: every engine
+    call, guided or prior, any tau, reuses one compiled program per shape."""
+    vox = bins[0] * bins[1] * bins[2]
+
+    def model(observed, temper=1.0):
+        return sherpa_calorimeter_wrapper(
+            observed, n_bins=bins, max_deposits=max_deposits,
+            abc_temper=temper,
+        )
+
+    eng = CSIS(model, (jnp.zeros(vox), 1.0), embedding_dim=64,
+               obs_embedding="cnn3d", obs_shape=bins)
+    return eng, model
+
+
+def train(eng, steps, batch_size, lr, key=None):
+    """Online CSIS training; returns (params, losses, wall seconds).  The
+    host transfer of the losses closes the timed region."""
+    key = jax.random.key(0) if key is None else key
+    t0 = time.perf_counter()
+    params, losses = eng.compile(key, steps=steps, batch_size=batch_size,
+                                 unroll=min(10, steps), learning_rate=lr)
+    losses = np.asarray(losses)
+    return params, losses, time.perf_counter() - t0
 
 
 def main():
@@ -58,13 +87,7 @@ def main():
     bins = tuple(args.bins)
     vox = bins[0] * bins[1] * bins[2]
 
-    # temperature as a TRACED model argument: every engine call below —
-    # guided or prior, any tau — reuses ONE compiled program per shape
-    def model(observed, temper=1.0):
-        return sherpa_calorimeter_wrapper(
-            observed, n_bins=bins, max_deposits=args.max_deposits,
-            abc_temper=temper,
-        )
+    eng, model = build_engine(bins, args.max_deposits)
 
     def observed_for(ch):
         tr = handlers.TraceHandler()
@@ -83,15 +106,8 @@ def main():
     print(f"device={dev.device_kind} volume={bins} ({vox} voxels) "
           f"max_deposits={args.max_deposits}")
 
-    eng = CSIS(model, (jnp.zeros(vox), 1.0), embedding_dim=64,
-               obs_embedding="cnn3d", obs_shape=bins)
-    t0 = time.perf_counter()
-    params, losses = eng.compile(
-        jax.random.key(0), steps=args.steps, batch_size=args.batch_size,
-        unroll=10, learning_rate=args.lr,
-    )
-    losses = np.asarray(losses)  # host transfer closes the timed region
-    train_s = time.perf_counter() - t0
+    params, losses, train_s = train(eng, args.steps, args.batch_size,
+                                    args.lr)
     traces = args.steps * args.batch_size
     tps = traces / train_s
     print(f"trained {traces} traces in {train_s:.1f}s = {tps:.1f} traces/s "
@@ -99,7 +115,7 @@ def main():
     print(f"loss {float(losses[0]):.3f} -> "
           f"{float(np.asarray(losses)[-10:].mean()):.3f}")
 
-    # Amortization evidence, not just throughput (VERDICT r2 item 5): at the
+    # Amortization evidence, not just throughput: at the
     # exact counting tolerance the 25k-voxel ABC log-likelihood spread is
     # thousands of nats, so BOTH proposals degenerate to ESS ~ 1 and the
     # guided advantage is invisible.  Temper the ABC kernel (power
@@ -110,13 +126,13 @@ def main():
     # per channel across temperatures; the trained proposal is shared (it
     # is an inverse model learned from prior traces — the temperature only
     # enters the observe weight, not the trace law).
-    from cpprob_tpu.models.sherpa import CHANNEL_MOMENTA
+    from cpprob_jax.models.sherpa import CHANNEL_MOMENTA
 
     def mom_truth(ch):
         active = (np.arange(4) <= ch)[:, None]
         return (np.asarray(CHANNEL_MOMENTA)[:, :3] * active).sum(axis=0)
 
-    # Defensive-mixture sweep (VERDICT r3 item 3): the proposal is an
+    # Defensive-mixture sweep: the proposal is an
     # amortized inverse model trained on the untempered trace law; when the
     # served (tempered) posterior is wider than the training target, a pure
     # learned proposal under-covers and loses ESS to the prior on the
@@ -206,8 +222,8 @@ def main():
             cand = {"abc_temper": s, "defensive": lam,
                     "min_channel_ess_ratio": min_ratio,
                     "all_channels_correct": correct,
-                    # accuracy column BESIDE the quoted ratio (VERDICT r5
-                    # item 7): the tempered posterior the proposal wins on
+                    # accuracy column BESIDE the quoted ratio: the
+                    # tempered posterior the proposal wins on
                     # is flatter than the temper-1 target, and the quoted
                     # win must carry that cost visibly
                     "guided_momentum_abs_err_by_channel": err_by_ch,
@@ -300,7 +316,7 @@ def main():
                     "where the 25k-voxel spread degenerates BOTH proposals "
                     "to ESS~1 (see models/sherpa.py docstring)",
         "guided_channel_correct_count_at_temper1": wins,
-        "versions": __import__("cpprob_tpu.util.profiling", fromlist=["env_versions"]).env_versions(),
+        "versions": __import__("cpprob_jax.util.profiling", fromlist=["env_versions"]).env_versions(),
     }
     if args.out:
         with open(args.out, "w") as f:

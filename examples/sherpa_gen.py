@@ -23,8 +23,8 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-from cpprob_tpu.core import handlers
-from cpprob_tpu.models.sherpa import sherpa_mini
+from cpprob_jax.core import handlers
+from cpprob_jax.models.sherpa import sherpa_mini
 
 
 def main():

@@ -24,9 +24,9 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-import cpprob_tpu as ct
-from cpprob_tpu.inference.csis import CSIS
-from cpprob_tpu.models import hmm, hmm_exact_posterior
+import cpprob_jax as ct
+from cpprob_jax.inference.csis import CSIS
+from cpprob_jax.models import hmm, hmm_exact_posterior
 
 
 def marginals(res, T):
@@ -58,7 +58,7 @@ def main():
 
     T = args.length
     # observations simulated from the model prior (fixed key)
-    from cpprob_tpu.core import handlers
+    from cpprob_jax.core import handlers
 
     tr = handlers.TraceHandler()
     with handlers.Seed(jax.random.key(99)), handlers.SimulateObserves(), tr:

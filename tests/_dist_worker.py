@@ -2,8 +2,8 @@
 by pytest — launched by ``tests/test_multiprocess.py``).
 
 Each process owns 4 virtual CPU devices; ``jax.distributed`` glues them into
-one 8-device global mesh over a Gloo backend, which is exactly the shape of
-a 2-host TPU pod slice (4 local chips per host).  The sharded SIS/SMC code
+one 8-device global mesh over a Gloo backend, which is the shape of two
+hosts with 4 local cards each.  The sharded SIS/SMC code
 paths are the production ones — no test doubles.
 """
 
@@ -24,7 +24,7 @@ def main():
     nproc = int(sys.argv[2])
     port = sys.argv[3]
 
-    from cpprob_tpu.parallel import initialize_multihost
+    from cpprob_jax.parallel import initialize_multihost
 
     initialize_multihost(f"127.0.0.1:{port}", nproc, pid)
     assert jax.process_count() == nproc
@@ -34,13 +34,13 @@ def main():
     import jax.numpy as jnp
     import numpy as np
 
-    from cpprob_tpu.models import (
+    from cpprob_jax.models import (
         gaussian_posterior_analytic,
         gaussian_unknown_mean,
         kalman_filter_1d,
         linear_gaussian_ssm,
     )
-    from cpprob_tpu.parallel import particle_mesh, sis_sharded, smc_sharded
+    from cpprob_jax.parallel import particle_mesh, sis_sharded, smc_sharded
 
     mesh = particle_mesh()  # spans both processes' devices
 

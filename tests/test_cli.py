@@ -1,4 +1,4 @@
-"""CLI parity (VERDICT r3 item 5): the reference drives its whole workflow
+"""CLI parity: the reference drives its whole workflow
 through its CLI (``src/main.cpp:116-239``, ``infcomp/main.py:15-40``) —
 compile-mode controls ``--obs_embedding`` (main.py:35), ``--resume``
 (main.py:38), ``--save_after_n_traces`` (main.py:33-34) and Ctrl-C-safe
@@ -11,7 +11,7 @@ import jax
 import numpy as np
 import pytest
 
-from cpprob_tpu.cli import main
+from cpprob_jax.cli import main
 
 
 class TestBasicModes:
@@ -61,7 +61,7 @@ class TestCompileResumeRoundtrip:
         """--resume must actually pass the loaded params into the standard
         (non-dynamic) engine's compile — the r4 advisor found it printed
         'resuming from' yet silently retrained from scratch."""
-        from cpprob_tpu.inference.csis import CSIS
+        from cpprob_jax.inference.csis import CSIS
 
         ckpt = str(tmp_path / "nn")
         rc = main(["--model", "gaussian", "-m", "compile", "--steps", "2",
@@ -96,9 +96,9 @@ class TestCtrlCSafety:
         """KeyboardInterrupt mid-training returns the partially trained
         params (and periodic checkpoints survive) instead of unwinding —
         reference ``train.py:47-53``."""
-        from cpprob_tpu.inference.csis import CSIS
-        from cpprob_tpu.models import gaussian_unknown_mean_readme
-        from cpprob_tpu.util import periodic_saver
+        from cpprob_jax.inference.csis import CSIS
+        from cpprob_jax.models import gaussian_unknown_mean_readme
+        from cpprob_jax.util import periodic_saver
 
         eng = CSIS(gaussian_unknown_mean_readme, (0.0, 0.0))
         saver = periodic_saver(str(tmp_path), 16)

@@ -8,17 +8,17 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-import cpprob_tpu as ct
-from cpprob_tpu.core import handlers
-from cpprob_tpu.distributions import Normal, Uniform
-from cpprob_tpu.inference.csis import (
+import cpprob_jax as ct
+from cpprob_jax.core import handlers
+from cpprob_jax.distributions import Normal, Uniform
+from cpprob_jax.inference.csis import (
     CSIS,
     CSISProposalMessenger,
     discover_structure,
     init_csis_params,
     make_proposal_dist,
 )
-from cpprob_tpu.models import (
+from cpprob_jax.models import (
     gaussian_posterior_analytic,
     gaussian_unknown_mean_readme,
     hmm,
@@ -188,7 +188,7 @@ def test_csis_infer_is_jittable_end_to_end(key):
     eng = CSIS(gaussian_unknown_mean_readme, (0.0, 0.0))
     params = eng.init(jax.random.key(0))
     factory = eng.proposal_factory(params, (3.0, 4.0))
-    from cpprob_tpu.inference.sis import make_particle_fn
+    from cpprob_jax.inference.sis import make_particle_fn
 
     particle = make_particle_fn(
         gaussian_unknown_mean_readme, (3.0, 4.0), proposal_messenger=factory
@@ -199,10 +199,10 @@ def test_csis_infer_is_jittable_end_to_end(key):
 
 
 def test_masked_variable_structure(key):
-    """Variable-size models = static-max + Mask (the TPU replacement for the
+    """Variable-size models = static-max + Mask (the static-shape replacement for the
     reference's address-sequence subbatching): masked-out sites must not
     contribute to training loss or inference weights."""
-    from cpprob_tpu.distributions import Poisson
+    from cpprob_jax.distributions import Poisson
 
     MAXN = 6
 
@@ -258,7 +258,7 @@ def test_truncated_prior_gets_proposal_head(key):
     """Truncated priors route to the truncated-mixture head (beyond the
     reference's 4-type parse set, infcomp/traits.py:28-34): the guided
     posterior must match 1-D quadrature and beat the prior-fallback ESS."""
-    from cpprob_tpu.distributions import Truncated
+    from cpprob_jax.distributions import Truncated
 
     def m(y):
         x = ct.sample(Truncated(Normal(0.0, 2.0), -1.0, 3.0), addr="x")
@@ -286,7 +286,7 @@ def test_truncated_prior_gets_proposal_head(key):
 
 def test_mixture_prior_gets_mdn_head(key):
     """Mixture priors route to a mixture-density head sized to the prior."""
-    from cpprob_tpu.distributions import Mixture
+    from cpprob_jax.distributions import Mixture
 
     def m(y):
         z = ct.sample(
@@ -321,7 +321,7 @@ class TestInferMany:
         """infer_many scans B queries in one dispatch; each row must equal
         the single-query infer() for the same key (same cached program
         semantics), and posterior estimates must hit the oracle."""
-        from cpprob_tpu.models import gaussian_unknown_mean_readme
+        from cpprob_jax.models import gaussian_unknown_mean_readme
 
         eng = CSIS(gaussian_unknown_mean_readme, (0.0, 0.0))
         params, _ = eng.compile(jax.random.key(0), steps=120, batch_size=32)

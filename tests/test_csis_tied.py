@@ -10,14 +10,14 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from cpprob_tpu.inference.csis import (
+from cpprob_jax.inference.csis import (
     CSIS,
     discover_structure,
     init_csis_params,
     tie_structure,
 )
-from cpprob_tpu.inference.sis import sis
-from cpprob_tpu.models import hmm, hmm_exact_posterior
+from cpprob_jax.inference.sis import sis
+from cpprob_jax.models import hmm, hmm_exact_posterior
 
 
 def test_tie_structure_hmm():
@@ -50,8 +50,8 @@ def test_tied_params_constant_in_trace_length():
 
 
 def test_tie_structure_non_contiguous_and_mixed():
-    import cpprob_tpu as ct
-    from cpprob_tpu.distributions import Normal
+    import cpprob_jax as ct
+    from cpprob_jax.distributions import Normal
 
     def m(y):
         a = ct.sample(Normal(0.0, 1.0), addr="a")
@@ -83,7 +83,7 @@ def test_tied_csis_trains_and_guides_hmm():
 
     # observations from a known state path
     rng = np.random.RandomState(2)
-    from cpprob_tpu.models.hmm import HMM_MEANS, HMM_TRANS
+    from cpprob_jax.models.hmm import HMM_MEANS, HMM_TRANS
 
     z = 1
     obs = []

@@ -9,7 +9,7 @@ import numpy as np
 import pytest
 import scipy.stats as sps
 
-from cpprob_tpu import distributions as d
+from cpprob_jax import distributions as d
 
 ATOL = 1e-5
 
@@ -298,7 +298,7 @@ class TestExtendedDistributions:
 
 class TestDefensiveMixture:
     def test_log_prob_and_bounded_weights(self, key):
-        from cpprob_tpu.distributions import DefensiveMixture, Normal, Uniform
+        from cpprob_jax.distributions import DefensiveMixture, Normal, Uniform
 
         prop = Normal(2.0, 0.05)         # over-confident proposal
         anchor = Uniform(0.0, 4.0)       # prior
@@ -314,7 +314,7 @@ class TestDefensiveMixture:
         assert ratio.max() <= 1.0 / 0.25 + 1e-3
 
     def test_sampling_mixes(self, key):
-        from cpprob_tpu.distributions import DefensiveMixture, Normal, Uniform
+        from cpprob_jax.distributions import DefensiveMixture, Normal, Uniform
 
         d = DefensiveMixture(Normal(2.0, 0.05), Uniform(0.0, 4.0), 0.5)
         xs = np.asarray(d.sample(key, (20_000,)))
@@ -326,7 +326,7 @@ class TestDefensiveMixture:
     def test_event_dim_components(self, key):
         """ADVICE r3 (low): components with event dims (MVN) must broadcast
         against the per-draw component pick."""
-        from cpprob_tpu.distributions import (
+        from cpprob_jax.distributions import (
             DefensiveMixture,
             MultivariateNormalDiag,
         )

@@ -15,16 +15,16 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from cpprob_tpu.inference.resampling import (
-    _normalized_cumsum,
+from cpprob_jax.inference.resampling import (
     category_counts_systematic,
     category_weights,
     exchange_resample_discrete,
+    fill_ancestors,
     states_from_counts,
-    systematic_ancestors_from_cdf,
+    systematic_starts,
 )
-from cpprob_tpu.inference.smc import build_smc_run
-from cpprob_tpu.models.hmm import hmm_ssm
+from cpprob_jax.inference.smc import build_smc_run
+from cpprob_jax.models.hmm import hmm_ssm
 
 
 def _random_population(key, n, k=3):
@@ -43,9 +43,8 @@ def test_counts_match_direct_systematic_on_sorted_order():
         u0 = jnp.float32(0.31 + 0.1 * seed)
         order = jnp.argsort(states, stable=True)
         s_sorted, lw_sorted = states[order], log_w[order]
-        anc = systematic_ancestors_from_cdf(
-            _normalized_cumsum(lw_sorted), u0, 512
-        )
+        anc = fill_ancestors(systematic_starts(
+            jnp.exp(lw_sorted - jnp.max(lw_sorted)), u0, 512), 512)
         direct_counts = np.bincount(np.asarray(s_sorted[anc]), minlength=3)
 
         cat_w = category_weights(log_w, states, 3)
@@ -112,7 +111,7 @@ def test_smc_exchange_path_matches_classic_evidence():
 def test_smc_exchange_filtered_moments_match_exact():
     """Filtered state frequencies from the exchange path track the exact
     forward-filter marginals."""
-    from cpprob_tpu.models.hmm import HMM_MEANS, HMM_TRANS, hmm_exact_posterior
+    from cpprob_jax.models.hmm import HMM_MEANS, HMM_TRANS, hmm_exact_posterior
 
     T, N = 10, 8192
     rng = np.random.RandomState(11)

@@ -1,5 +1,5 @@
 """External black-box simulator bridge: compile -> infer against an
-out-of-process generator (VERDICT r2 item 2; reference premise
+out-of-process generator (reference premise
 ``src/models/sherpa.cpp:29-86``, ``README.md:5-13``)."""
 
 import os
@@ -10,11 +10,11 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-import cpprob_tpu as ct
-from cpprob_tpu.core import observe, predict, sample
-from cpprob_tpu.distributions import Uniform, UniformInt, make_abc
-from cpprob_tpu.external import SubprocessSimulator, observe_external
-from cpprob_tpu.inference.csis_dynamic import DynamicCSIS
+import cpprob_jax as ct
+from cpprob_jax.core import observe, predict, sample
+from cpprob_jax.distributions import Uniform, UniformInt, make_abc
+from cpprob_jax.external import SubprocessSimulator, observe_external
+from cpprob_jax.inference.csis_dynamic import DynamicCSIS
 
 _EXAMPLE = os.path.join(
     os.path.dirname(os.path.dirname(os.path.abspath(__file__))),

@@ -7,10 +7,10 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-import cpprob_tpu as ct
-from cpprob_tpu.distributions import Normal, SplineFlow1D
-from cpprob_tpu.distributions.flow import _rqs, _spline_params
-from cpprob_tpu.inference.csis import CSIS
+import cpprob_jax as ct
+from cpprob_jax.distributions import Normal, SplineFlow1D
+from cpprob_jax.distributions.flow import _rqs, _spline_params
+from cpprob_jax.inference.csis import CSIS
 
 K = 8
 

@@ -7,10 +7,10 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from cpprob_tpu.inference.regularize import chi_square_weights, dro_loss
-from cpprob_tpu.inference.smc import smc
-from cpprob_tpu.inference.smc_csis import guide_ssm, train_ssm_proposal
-from cpprob_tpu.models import (
+from cpprob_jax.inference.regularize import chi_square_weights, dro_loss
+from cpprob_jax.inference.smc import smc
+from cpprob_jax.inference.smc_csis import guide_ssm, train_ssm_proposal
+from cpprob_jax.models import (
     hmm_ssm,
     kalman_filter_1d,
     linear_gaussian_ssm,
@@ -95,8 +95,8 @@ class TestDRO:
         )
 
     def test_csis_with_dro_trains(self, key):
-        from cpprob_tpu.inference.csis import CSIS
-        from cpprob_tpu.models import gaussian_unknown_mean_readme
+        from cpprob_jax.inference.csis import CSIS
+        from cpprob_jax.models import gaussian_unknown_mean_readme
 
         eng = CSIS(gaussian_unknown_mean_readme, (0.0, 0.0))
         params, losses = eng.compile(

@@ -7,9 +7,9 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-import cpprob_tpu as ct
-from cpprob_tpu.core import handlers
-from cpprob_tpu.distributions import Normal, UniformInt
+import cpprob_jax as ct
+from cpprob_jax.core import handlers
+from cpprob_jax.distributions import Normal, UniformInt
 
 
 def simple_model(y):

@@ -5,12 +5,12 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-import cpprob_tpu as ct
-from cpprob_tpu.distributions import Beta, Bernoulli, Gamma, Normal, Uniform
-from cpprob_tpu.inference.hmc import hmc
-from cpprob_tpu.inference.potential import flatten_model
-from cpprob_tpu.inference.svi import svi
-from cpprob_tpu.models import (
+import cpprob_jax as ct
+from cpprob_jax.distributions import Beta, Bernoulli, Gamma, Normal, Uniform
+from cpprob_jax.inference.hmc import hmc
+from cpprob_jax.inference.potential import flatten_model
+from cpprob_jax.inference.svi import svi
+from cpprob_jax.models import (
     gaussian_posterior_analytic,
     gaussian_unknown_mean,
     gaussian_unknown_mean_readme,
@@ -145,7 +145,7 @@ class TestSVI:
 
 
 class TestSVIFullRank:
-    """Full-rank ADVI (r5, VERDICT item 9): correlated-posterior oracle.
+    """Full-rank ADVI: correlated-posterior oracle.
 
     Model: x ~ N(0, I_2); y | x ~ N(A x, sigma^2 I) with A = [[1,1],[0,1]].
     Analytic posterior: Sigma = (I + A^T A / s^2)^-1, mu = Sigma A^T y / s^2
@@ -195,7 +195,7 @@ class TestSVIFullRank:
         """Wire a trained CSIS proposal in as the SVI warm start: the
         guided posterior-mean estimate becomes init_loc, and the
         warm-started run must converge at least as well as cold."""
-        from cpprob_tpu.inference.csis import CSIS
+        from cpprob_jax.inference.csis import CSIS
 
         engine = CSIS(gaussian_unknown_mean_readme, (0.0, 0.0))
         params, _ = engine.compile(jax.random.key(0), steps=150,
@@ -219,7 +219,7 @@ class TestSVIFullRank:
 class TestDiagnostics:
     def test_rhat_and_ess_on_iid_chains(self, key):
         import jax
-        from cpprob_tpu.postprocess import (
+        from cpprob_jax.postprocess import (
             effective_sample_size,
             split_rhat,
             summarize_chains,
@@ -235,7 +235,7 @@ class TestDiagnostics:
 
     def test_rhat_detects_nonmixing(self, key):
         import jax.numpy as jnp
-        from cpprob_tpu.postprocess import split_rhat
+        from cpprob_jax.postprocess import split_rhat
 
         # two chains stuck at different modes
         samples = jnp.stack([jnp.zeros(200), jnp.ones(200) * 5.0])
@@ -245,7 +245,7 @@ class TestDiagnostics:
     def test_ess_detects_autocorrelation(self, key):
         import jax.numpy as jnp
         import numpy as np
-        from cpprob_tpu.postprocess import effective_sample_size
+        from cpprob_jax.postprocess import effective_sample_size
 
         rng = np.random.RandomState(0)
         x = np.zeros((2, 1000), np.float32)
@@ -258,8 +258,8 @@ class TestDiagnostics:
 
 class TestPredictive:
     def test_posterior_predictive(self, key):
-        from cpprob_tpu.inference.predictive import posterior_predictive
-        from cpprob_tpu.inference.svi import svi
+        from cpprob_jax.inference.predictive import posterior_predictive
+        from cpprob_jax.inference.svi import svi
 
         res = svi(gaussian_unknown_mean_readme, (3.0, 4.0), key, steps=1500)
         samples = res.sample(jax.random.key(2), 4000)
@@ -274,7 +274,7 @@ class TestPredictive:
         assert abs(y1.var() - (1.05882 + 4.0)) < 0.5
 
     def test_prior_predictive(self, key):
-        from cpprob_tpu.inference.predictive import prior_predictive
+        from cpprob_jax.inference.predictive import prior_predictive
 
         latents, obs = prior_predictive(
             gaussian_unknown_mean_readme, (0.0, 0.0), 8000, key

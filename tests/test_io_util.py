@@ -10,8 +10,8 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-import cpprob_tpu as ct
-from cpprob_tpu.io import (
+import cpprob_jax as ct
+from cpprob_jax.io import (
     dump_posterior,
     dump_posterior_npz,
     format_value,
@@ -20,8 +20,8 @@ from cpprob_tpu.io import (
     parse_observes,
     parse_value,
 )
-from cpprob_tpu.models import gaussian_unknown_mean_readme
-from cpprob_tpu.util import (
+from cpprob_jax.models import gaussian_unknown_mean_readme
+from cpprob_jax.util import (
     TrainLogger,
     flatten_nested,
     latest_checkpoint,
@@ -78,8 +78,8 @@ class TestSerialization:
         """The wired-in native parser (load_posterior(native=True)) must
         agree exactly with the Python s-expression parser on a mixed
         int/real dump with repeated predicts."""
-        from cpprob_tpu.io.tracefile import native_available
-        from cpprob_tpu.models import hmm
+        from cpprob_jax.io.tracefile import native_available
+        from cpprob_jax.models import hmm
 
         if not native_available():
             pytest.skip("no native lib")
@@ -103,8 +103,8 @@ class TestSerialization:
         """ADVICE r3 (medium): a dump with BOTH .int and .real files (the
         SHERPA shape: int channel + real momentum) must yield ONE weight per
         particle, and StatsPrinter.from_dump must summarize it."""
-        from cpprob_tpu.inference.sis import ImportanceResult
-        from cpprob_tpu.postprocess.stats import StatsPrinter
+        from cpprob_jax.inference.sis import ImportanceResult
+        from cpprob_jax.postprocess.stats import StatsPrinter
 
         n = 50
         rng = np.random.default_rng(0)
@@ -206,7 +206,7 @@ def _run_cli(*args):
     return subprocess.run(
         [sys.executable, "-c",
          "import jax; jax.config.update('jax_platforms','cpu');"
-         "from cpprob_tpu.cli import main; raise SystemExit(main())",
+         "from cpprob_jax.cli import main; raise SystemExit(main())",
          ] + list(args),
         capture_output=True, text=True, env=env, timeout=600,
     )
@@ -271,7 +271,7 @@ class TestCLI:
 
 class TestOrbaxCheckpoint:
     def test_roundtrip(self, tmp_path):
-        from cpprob_tpu.util import load_pytree_orbax, save_pytree_orbax
+        from cpprob_jax.util import load_pytree_orbax, save_pytree_orbax
 
         tree = {"w": jnp.arange(4.0), "b": jnp.ones((2,))}
         p = save_pytree_orbax(str(tmp_path / "ock"), tree)

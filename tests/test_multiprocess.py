@@ -2,9 +2,9 @@
 tests on CPU jax.distributed' recommendation): two OS processes x 4 virtual
 CPU devices each form one 8-device global mesh over jax.distributed (Gloo),
 and the production sharded SIS/SMC paths must produce correct statistics
-across the process boundary.  This is the closest achievable stand-in for a
-2-host TPU pod slice in this environment (real pods: same code, ICI/DCN
-instead of Gloo)."""
+across the process boundary.  This is the closest achievable stand-in for
+two hosts of 4 cards each on the CPU (on cards: same code, NCCL instead of
+Gloo)."""
 
 import os
 import socket

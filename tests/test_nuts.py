@@ -5,10 +5,10 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-import cpprob_tpu as ct
-from cpprob_tpu.distributions import Beta, Bernoulli, MultivariateNormalDiag, Normal
-from cpprob_tpu.inference.nuts import nuts
-from cpprob_tpu.models import gaussian_unknown_mean_readme
+import cpprob_jax as ct
+from cpprob_jax.distributions import Beta, Bernoulli, MultivariateNormalDiag, Normal
+from cpprob_jax.inference.nuts import nuts
+from cpprob_jax.models import gaussian_unknown_mean_readme
 
 
 def test_conjugate_gaussian(key):
@@ -58,7 +58,7 @@ def test_beta_bernoulli(key):
 
 
 def test_matches_hmc_moments(key):
-    from cpprob_tpu.inference.hmc import hmc
+    from cpprob_jax.inference.hmc import hmc
 
     res_n = nuts(gaussian_unknown_mean_readme, (3.0, 4.0), key,
                  n_samples=1000, n_warmup=400, n_chains=2, max_depth=6)
@@ -71,7 +71,7 @@ def test_matches_hmc_moments(key):
 
 class TestChEES:
     def test_conjugate_gaussian(self, key):
-        from cpprob_tpu.inference.chees import chees_hmc
+        from cpprob_jax.inference.chees import chees_hmc
 
         res = chees_hmc(
             gaussian_unknown_mean_readme, (3.0, 4.0), key,
@@ -85,8 +85,8 @@ class TestChEES:
     def test_anisotropic_efficiency(self, key):
         """ChEES-adapted trajectories should mix the wide dimension at least
         as well as short fixed trajectories."""
-        from cpprob_tpu.inference.chees import chees_hmc
-        from cpprob_tpu.postprocess import effective_sample_size
+        from cpprob_jax.inference.chees import chees_hmc
+        from cpprob_jax.postprocess import effective_sample_size
 
         def m():
             ct.sample(

@@ -10,11 +10,11 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-import cpprob_tpu as ct
-from cpprob_tpu.core import handlers
-from cpprob_tpu.distributions import MultivariateNormalDiag, Normal
-from cpprob_tpu.inference.csis import CSIS, embed_observation
-from cpprob_tpu.models.sherpa import sherpa_calorimeter_wrapper
+import cpprob_jax as ct
+from cpprob_jax.core import handlers
+from cpprob_jax.distributions import MultivariateNormalDiag, Normal
+from cpprob_jax.inference.csis import CSIS, embed_observation
+from cpprob_jax.models.sherpa import sherpa_calorimeter_wrapper
 
 BINS = (7, 7, 5)          # reduced-but-3D calorimeter volume for CI
 MAXDEP = 256

@@ -1,25 +1,25 @@
-"""Kernel-from-spec tests: generated fused kernels for user-defined discrete
-HMMs and scalar SSMs (interpret mode — deterministic arithmetic; the hardware
-PRNG has no CPU lowering) + XLA-path statistical validation vs exact oracles.
+"""Fused discrete kernel from a user HMM spec: the Triton kernel in
+interpret mode (real counter-based random bits) against its same-bits XLA
+reference and closed forms, plus XLA-path statistical validation vs the
+exact oracles.
 """
+
+import dataclasses
 
 import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from cpprob_tpu.inference.smc import build_smc_run
-from cpprob_tpu.ops.pallas_ssm import (
-    _horner,
-    _make_table_lookup,
-    _poly_coeffs,
-    attach_fused_guided_discrete_kernels,
-    attach_fused_guided_scalar_kernels,
-    attach_fused_scalar_kernels,
+from cpprob_jax.inference.smc import build_smc_run
+from cpprob_jax.inference.smc_csis import guide_ssm, train_ssm_proposal
+from cpprob_jax.models.hmm import (
+    HMM_MEANS,
+    HMM_TRANS,
     discrete_hmm_log_evidence,
     discrete_hmm_smoothed_marginals,
-    make_fused_discrete_ssm,
 )
+from cpprob_jax.ops.pallas_ssm import make_fused_discrete_ssm
 
 # a deliberately asymmetric 5-state chain (not the reference's 3-state one)
 TRANS5 = np.array(
@@ -34,42 +34,28 @@ TRANS5 = np.array(
 MEANS5 = np.array([-2.0, -1.0, 0.0, 1.0, 2.0])
 STDS5 = np.array([0.5, 1.0, 0.7, 1.2, 0.9])
 INIT5 = np.array([0.3, 0.1, 0.2, 0.2, 0.2])
+N = 2 * 1024
 
 
-class TestPolyTables:
-    def test_exact_at_integer_states(self):
-        vals = np.array([0.3, -1.7, 2.2, 0.01, 5.0])
-        coeffs = _poly_coeffs(vals)
-        s = jnp.arange(5, dtype=jnp.float32)
-        out = np.asarray(_horner(s, coeffs))
-        np.testing.assert_allclose(out, vals, rtol=2e-5, atol=2e-5)
+def _cyclic(K):
+    """Deterministic transitions s -> s+1 mod K: closed-form state paths."""
+    return np.roll(np.eye(K), 1, axis=1)
 
-    def test_cdf_polys_reproduce_rows(self):
-        cdf = np.cumsum(TRANS5, axis=1)
-        for k in range(4):
-            coeffs = _poly_coeffs(cdf[:, k])
-            out = np.asarray(_horner(jnp.arange(5, dtype=jnp.float32), coeffs))
-            np.testing.assert_allclose(out, cdf[:, k], atol=3e-5)
 
-    @pytest.mark.parametrize("k", [2, 5, 8, 12, 16, 32])
-    def test_table_lookup_exact_at_any_k(self, k):
-        """ADVICE r3 (high): raw f32 Horner on Vandermonde coefficients is
-        catastrophically wrong from K~10; the build-time-validated lookup
-        must stay node-exact at every supported K."""
-        rng = np.random.default_rng(k)
-        vals = rng.standard_normal(k) * 3.0
-        lookup = _make_table_lookup(vals)
-        out = np.asarray(lookup(jnp.arange(k, dtype=jnp.float32)))
-        np.testing.assert_allclose(out, vals, rtol=2e-5, atol=2e-5)
+def _spec(K):
+    """Transition matrix, means, stds and initial distribution at K states."""
+    if K == 3:
+        return HMM_TRANS, HMM_MEANS, np.ones(3), np.full(3, 1 / 3)
+    if K == 5:
+        return TRANS5, MEANS5, STDS5, INIT5
+    rng = np.random.default_rng(K)
+    return (rng.dirichlet(np.ones(K), size=K), np.linspace(-3.0, 3.0, K),
+            np.linspace(0.5, 1.6, K), np.full(K, 1.0 / K))
 
-    def test_table_lookup_cdf_rows_k16(self):
-        rng = np.random.default_rng(7)
-        t = rng.dirichlet(np.ones(16), size=16)
-        cdf = np.cumsum(t, axis=1)
-        for k in range(15):
-            lookup = _make_table_lookup(cdf[:, k])
-            out = np.asarray(lookup(jnp.arange(16, dtype=jnp.float32)))
-            np.testing.assert_allclose(out, cdf[:, k], atol=1e-5)
+
+def _logpdf(y, mean, std):
+    return -0.5 * ((y - mean) / std) ** 2 - np.log(std) - 0.5 * np.log(
+        2 * np.pi)
 
 
 class TestBuilderValidation:
@@ -89,117 +75,140 @@ class TestBuilderValidation:
 
 
 class TestDiscreteKernelInterpret:
-    """interpret=True substitutes u=0 for the hardware draws: transitions
-    deterministically map every state to 0 (all cdf entries > 0), which gives
-    an exact closed-form trace to check the generated arithmetic against."""
+    """Cyclic transitions make every state path known, so the generated
+    arithmetic (CDF loads, emission table, masking, exchange synthesis)
+    is checked against closed forms on real random bits."""
 
-    def _ssm(self):
+    def _ssm(self, K=5, **kw):
         return make_fused_discrete_ssm(
-            TRANS5, MEANS5, STDS5, INIT5, block_r=8, interpret=True
-        )
+            _cyclic(K), MEANS5[:K] if K == 5 else np.linspace(-3, 3, K),
+            STDS5[:K] if K == 5 else np.linspace(0.5, 1.6, K),
+            interpret=True, **kw)
 
     def test_chunk_deterministic_weights(self):
         ssm = self._ssm()
-        n = 8 * 128
-        states = jnp.full((n,), 3, jnp.int32)
-        log_w = jnp.zeros((n,))
+        states = jnp.full((N,), 3, jnp.int32)
         ys = jnp.array([0.5, -0.25, 1.0])
         s, w, ess, cat_w, lme = ssm.fused_chunk_exchange_batch(
-            jax.random.key(0), states, log_w, ys, jnp.int32(3),
+            jax.random.key(0), states, jnp.zeros((N,)), ys, jnp.int32(3),
             jnp.int32(0), jnp.zeros((4,), jnp.int32),
         )
-        # u=0 => new state always 0; emission N(means[0]=-2, stds[0]=0.5)
-        expected = sum(
-            -0.5 * ((y - MEANS5[0]) / STDS5[0]) ** 2
-            - np.log(STDS5[0]) - 0.5 * np.log(2 * np.pi)
-            for y in np.asarray(ys)
-        )
-        assert np.all(np.asarray(s) == 0)
-        np.testing.assert_allclose(np.asarray(w), expected, rtol=2e-4)
-        np.testing.assert_allclose(float(ess), n, rtol=1e-5)  # equal weights
-        np.testing.assert_allclose(
-            np.asarray(cat_w), [1.0, 0, 0, 0, 0], atol=1e-6
-        )
-        np.testing.assert_allclose(float(lme), expected, rtol=2e-4)
+        # path 3 -> 4 -> 0 -> 1
+        expected = sum(_logpdf(y, MEANS5[k], STDS5[k])
+                       for y, k in zip(np.asarray(ys), (4, 0, 1)))
+        assert np.all(np.asarray(s) == 1)
+        np.testing.assert_allclose(np.asarray(w), expected, rtol=2e-5)
+        np.testing.assert_allclose(float(ess), N, rtol=1e-5)
+        np.testing.assert_allclose(np.asarray(cat_w), [0, 1.0, 0, 0, 0],
+                                   atol=1e-6)
+        np.testing.assert_allclose(float(lme), expected, rtol=2e-5)
 
     def test_ragged_tail_masking(self):
         ssm = self._ssm()
-        n = 8 * 128
-        states = jnp.full((n,), 2, jnp.int32)
-        log_w = jnp.zeros((n,))
-        ys = jnp.array([0.5, 99.0, 99.0])  # steps 2,3 invalid
+        states = jnp.full((N,), 2, jnp.int32)
+        ys = jnp.array([0.5, 99.0, 99.0])  # steps 2, 3 invalid
         s, w, _, _, _ = ssm.fused_chunk_exchange_batch(
-            jax.random.key(0), states, log_w, ys, jnp.int32(1),
+            jax.random.key(0), states, jnp.zeros((N,)), ys, jnp.int32(1),
             jnp.int32(0), jnp.zeros((4,), jnp.int32),
         )
-        expected = (
-            -0.5 * ((0.5 - MEANS5[0]) / STDS5[0]) ** 2
-            - np.log(STDS5[0]) - 0.5 * np.log(2 * np.pi)
-        )
-        np.testing.assert_allclose(np.asarray(w), expected, rtol=2e-4)
+        assert np.all(np.asarray(s) == 3)
+        np.testing.assert_allclose(np.asarray(w),
+                                   _logpdf(0.5, MEANS5[3], STDS5[3]),
+                                   rtol=2e-5)
 
     def test_exchange_synthesis(self):
-        """flag=1: population synthesized from category ticks, weights reset."""
+        """flag=1: population synthesized from category ticks, weights
+        reset (incoming states and weights ignored)."""
         ssm = self._ssm()
-        n = 8 * 128
-        states = jnp.full((n,), 4, jnp.int32)  # should be ignored
-        log_w = jnp.full((n,), -123.0)         # should be ignored
-        ys = jnp.array([0.0])
+        states = jnp.full((N,), 4, jnp.int32)
+        log_w = jnp.full((N,), -123.0)
         ticks = jnp.asarray([100, 300, 600, 900], jnp.int32)
         s, w, _, cat_w, _ = ssm.fused_chunk_exchange_batch(
-            jax.random.key(0), states, log_w, ys, jnp.int32(1),
+            jax.random.key(0), states, log_w, jnp.array([0.0]), jnp.int32(1),
             jnp.int32(1), ticks,
         )
-        # synthesized pre-transition states: counts (100, 200, 300, 300, 124);
-        # u=0 transition maps all to state 0
-        assert np.all(np.asarray(s) == 0)
-        expected = (
-            -0.5 * ((0.0 - MEANS5[0]) / STDS5[0]) ** 2
-            - np.log(STDS5[0]) - 0.5 * np.log(2 * np.pi)
-        )
-        np.testing.assert_allclose(np.asarray(w), expected, rtol=2e-4)
+        parents = np.searchsorted(np.asarray(ticks), np.arange(N),
+                                  side="right")
+        np.testing.assert_array_equal(np.asarray(s), (parents + 1) % 5)
+        np.testing.assert_allclose(
+            np.asarray(w), _logpdf(0.0, MEANS5, STDS5)[(parents + 1) % 5],
+            rtol=2e-5)
+        counts = np.bincount((parents + 1) % 5, minlength=5)
+        e = np.exp(np.asarray(w, np.float64))
+        want = np.array([e[(parents + 1) % 5 == k].sum() for k in range(5)])
+        np.testing.assert_allclose(np.asarray(cat_w), want / e.sum(),
+                                   atol=1e-6)
+        assert counts.sum() == N
 
     def test_chunk_deterministic_weights_k12(self):
-        """K=12 exercises the chained-select fallback inside the generated
-        kernel (the Horner path fails build-time validation at this K)."""
-        rng = np.random.default_rng(12)
-        trans = rng.dirichlet(np.ones(12), size=12)
-        means = np.linspace(-3.0, 3.0, 12)
-        stds = np.linspace(0.5, 1.6, 12)
-        ssm = make_fused_discrete_ssm(
-            trans, means, stds, block_r=8, interpret=True
-        )
-        n = 8 * 128
-        states = jnp.full((n,), 7, jnp.int32)
-        log_w = jnp.zeros((n,))
+        """K=12: eleven CDF loads per step, still exact."""
+        means, stds = np.linspace(-3, 3, 12), np.linspace(0.5, 1.6, 12)
+        ssm = self._ssm(K=12)
+        states = jnp.full((N,), 7, jnp.int32)
         ys = jnp.array([0.5, -0.25])
         s, w, _, _, lme = ssm.fused_chunk_exchange_batch(
-            jax.random.key(0), states, log_w, ys, jnp.int32(2),
+            jax.random.key(0), states, jnp.zeros((N,)), ys, jnp.int32(2),
             jnp.int32(0), jnp.zeros((11,), jnp.int32),
         )
-        # u=0 => new state always 0; emission N(means[0], stds[0])
-        expected = sum(
-            -0.5 * ((y - means[0]) / stds[0]) ** 2
-            - np.log(stds[0]) - 0.5 * np.log(2 * np.pi)
-            for y in np.asarray(ys)
-        )
-        assert np.all(np.asarray(s) == 0)
-        np.testing.assert_allclose(np.asarray(w), expected, rtol=2e-4)
-        np.testing.assert_allclose(float(lme), expected, rtol=2e-4)
+        expected = (_logpdf(0.5, means[8], stds[8])
+                    + _logpdf(-0.25, means[9], stds[9]))
+        assert np.all(np.asarray(s) == 9)
+        np.testing.assert_allclose(np.asarray(w), expected, rtol=2e-5)
+        np.testing.assert_allclose(float(lme), expected, rtol=2e-5)
 
     def test_init_kernel(self):
-        ssm = self._ssm()
-        n = 8 * 128
+        ssm = make_fused_discrete_ssm(TRANS5, MEANS5, STDS5,
+                                      [0.0, 0.0, 1.0, 0.0, 0.0],
+                                      interpret=True)
         s, w, ess, cat_w, lme = ssm.fused_init_batch(
-            jax.random.key(0), n, jnp.float32(0.25)
+            jax.random.key(0), N, jnp.float32(0.25)
         )
-        # u=0 => initial state 0 everywhere
-        assert np.all(np.asarray(s) == 0)
-        expected = (
-            -0.5 * ((0.25 - MEANS5[0]) / STDS5[0]) ** 2
-            - np.log(STDS5[0]) - 0.5 * np.log(2 * np.pi)
-        )
-        np.testing.assert_allclose(np.asarray(w), expected, rtol=2e-4)
+        assert np.all(np.asarray(s) == 2)
+        np.testing.assert_allclose(np.asarray(w),
+                                   _logpdf(0.25, MEANS5[2], STDS5[2]),
+                                   rtol=2e-5)
+
+    def test_init_distribution(self):
+        ssm = make_fused_discrete_ssm(TRANS5, MEANS5, STDS5, INIT5,
+                                      interpret=True)
+        s = ssm.fused_init_batch(jax.random.key(1), 8 * 1024,
+                                 jnp.float32(0.0))[0]
+        frac = np.bincount(np.asarray(s), minlength=5) / (8 * 1024)
+        np.testing.assert_allclose(frac, INIT5, atol=0.02)
+
+
+@pytest.mark.parametrize("island_every", [0, 4])
+@pytest.mark.parametrize("K", [3, 5, 12])
+def test_kernel_matches_same_bits_reference(K, island_every):
+    """Interpret-mode kernel vs the plain XLA reference on the same bits:
+    identical states, weights to rounding, identical partials; a sweep
+    from the fused init through a chunk with a forced exchange resample
+    and a ragged tail."""
+    trans, means, stds, init = _spec(K)
+    kw = dict(island_every=island_every, island_thresh=0.7)
+    kern = make_fused_discrete_ssm(trans, means, stds, init, interpret=True,
+                                   **kw)
+    ref = make_fused_discrete_ssm(trans, means, stds, init, reference=True,
+                                  **kw)
+    ys = jnp.asarray(np.random.default_rng(K).normal(0, 1.5, 11),
+                     jnp.float32)
+    k0, k1 = jax.random.split(jax.random.key(K))
+    ik, ir = (m.fused_init_batch(k0, N, ys[0]) for m in (kern, ref))
+    np.testing.assert_array_equal(np.asarray(ik[0]), np.asarray(ir[0]))
+    np.testing.assert_allclose(np.asarray(ik[1]), np.asarray(ir[1]),
+                               rtol=1e-6)
+    ticks = jnp.asarray(np.linspace(0, N, K + 1)[1:-1].astype(np.int32))
+    ck, cr = (m.fused_chunk_exchange_batch(
+        k1, ik[0], ik[1], ys[1:], jnp.int32(9), jnp.int32(1), ticks,
+        partials=True) for m in (kern, ref))
+    np.testing.assert_array_equal(np.asarray(ck.states),
+                                  np.asarray(cr.states))
+    np.testing.assert_allclose(np.asarray(ck.log_weights),
+                               np.asarray(cr.log_weights), rtol=1e-5)
+    np.testing.assert_allclose(np.asarray(ck.partials),
+                               np.asarray(cr.partials), rtol=1e-5)
+    if island_every:
+        assert np.asarray(ck.partials)[:, 3 + K].max() >= 1.0
 
 
 class TestDiscreteXLAStatistical:
@@ -219,16 +228,11 @@ class TestDiscreteXLAStatistical:
             z = rng.choice(5, p=TRANS5[z])
         ys = jnp.asarray(np.array(ys), jnp.float32)
 
-        ssm = make_fused_discrete_ssm(TRANS5, MEANS5, STDS5, INIT5)
-        # strip fused hooks: CPU has no hardware PRNG
-        import dataclasses
-
+        ssm = make_fused_discrete_ssm(TRANS5, MEANS5, STDS5, INIT5,
+                                      reference=True)
+        # store_history=True runs the plain per-step XLA path
         xla_ssm = dataclasses.replace(
-            ssm,
-            fused_step_ess_batch=None,
-            fused_step_exchange_batch=None,
-            fused_chunk_exchange_batch=None,
-            fused_init_batch=None,
+            ssm, fused_chunk_exchange_batch=None, fused_init_batch=None,
         )
         n = 65536
         run = build_smc_run(xla_ssm, n, store_history=True)
@@ -249,243 +253,19 @@ class TestDiscreteXLAStatistical:
         np.testing.assert_allclose(est, post[-1], atol=0.02)
 
 
-class TestGuidedScalarKernelInterpret:
-    """Fused guided kernel (VERDICT r3 item 8b): the in-kernel unrolled MLP
-    and RN-corrected weight must reproduce the reference smc_csis math.
-    interpret mode: eps = 0, so z' = mean deterministically."""
-
-    HALF_LOG_2PI = 0.9189385332046727
-
-    def _net(self, key, hidden=8):
-        from cpprob_tpu.inference import nn
-
-        return nn.mlp_init(key, [3, hidden, hidden, 2])
-
-    def test_matches_reference_mlp_and_weights(self, key):
-        from cpprob_tpu.inference import nn
-        from cpprob_tpu.models.linear_gaussian import linear_gaussian_ssm
-
-        params = self._net(key)
-        T = 8
-
-        def trans_lp(x, nx, t):
-            d = nx - x
-            return -0.5 * d * d - self.HALF_LOG_2PI
-
-        def obs_lp(nx, y, t):
-            d = y - nx
-            return -0.5 * d * d - self.HALF_LOG_2PI
-
-        ssm = attach_fused_guided_scalar_kernels(
-            linear_gaussian_ssm, params, T,
-            trans_logpdf_elem=trans_lp, obs_logpdf_elem=obs_lp,
-            block_r=8, interpret=True,
-        )
-        n = 8 * 128
-        x0 = jnp.full((n,), 0.7)
-        log_w = jnp.zeros((n,))
-        ys = jnp.array([0.5, -0.25])
-        t0 = jnp.int32(3)
-        s, w, ess = ssm.fused_chunk_t_batch(
-            jax.random.key(0), x0, log_w, ys, jnp.int32(2), t0
-        )
-
-        # reference: the exact smc_csis guided update with eps = 0
-        x = np.full((n,), 0.7, np.float32)
-        lw = np.zeros((n,), np.float32)
-        for i, y in enumerate(np.asarray(ys)):
-            feats = jnp.stack([
-                jnp.asarray(x),
-                jnp.full((n,), y),
-                jnp.full((n,), (3 + i) / T),
-            ], axis=-1)
-            raw = jax.vmap(lambda f: nn.mlp_apply(params, f))(feats)
-            mean = np.asarray(raw[:, 0])
-            std = np.asarray(nn.softplus(raw[:, 1]))
-            nx = mean  # eps = 0
-            log_q = -np.log(std) - self.HALF_LOG_2PI
-            dlw = (
-                -0.5 * (nx - x) ** 2 - self.HALF_LOG_2PI
-                - 0.5 * (y - nx) ** 2 - self.HALF_LOG_2PI
-                - log_q
-            )
-            x, lw = nx, lw + dlw
-        np.testing.assert_allclose(np.asarray(s), x, rtol=2e-4, atol=2e-4)
-        np.testing.assert_allclose(np.asarray(w), lw, rtol=2e-4, atol=2e-3)
-
-    def test_rejects_wrong_net_shape(self, key):
-        from cpprob_tpu.inference import nn
-        from cpprob_tpu.models.linear_gaussian import linear_gaussian_ssm
-
-        bad = nn.mlp_init(key, [4, 8, 2])
-        with pytest.raises(ValueError):
-            attach_fused_guided_scalar_kernels(
-                linear_gaussian_ssm, bad, 8,
-                trans_logpdf_elem=lambda x, nx, t: x,
-                obs_logpdf_elem=lambda nx, y, t: nx,
-            )
-
-    def test_engine_integration_chunked(self, key):
-        """build_smc_run(chunk=) drives the t-aware kernel with correct
-        absolute t0 per chunk (checked via a t-sensitive transition)."""
-        from cpprob_tpu.inference import nn
-        from cpprob_tpu.inference.smc import build_smc_run
-        from cpprob_tpu.models.linear_gaussian import linear_gaussian_ssm
-
-        params = self._net(key)
-        T = 5
-        seen_t0 = []
-
-        def trans_lp(x, nx, t):
-            if isinstance(t, int) or np.isscalar(t):
-                seen_t0.append(int(t))
-            d = nx - x
-            return -0.5 * d * d - self.HALF_LOG_2PI
-
-        def obs_lp(nx, y, t):
-            d = y - nx
-            return -0.5 * d * d - self.HALF_LOG_2PI
-
-        ssm = attach_fused_guided_scalar_kernels(
-            linear_gaussian_ssm, params, T,
-            trans_logpdf_elem=trans_lp, obs_logpdf_elem=obs_lp,
-            block_r=8, interpret=True,
-        )
-        run = build_smc_run(ssm, 8 * 128, chunk=2, store_history=False)
-        ys = jnp.asarray(np.linspace(-1, 1, T), jnp.float32)
-        res = jax.jit(run)(key, ys)
-        assert np.isfinite(float(res.log_evidence))
-
-    def test_xla_fallback_installed(self, key):
-        """The attach must also install proposal_sample/proposal_logpdf so
-        chunk=1 (kernel unavailable) serves the trained guide through the
-        engine's guided slow path instead of silently dropping it
-        (r4 advisor finding)."""
-        from cpprob_tpu.inference import nn
-        from cpprob_tpu.inference.smc import build_smc_run
-        from cpprob_tpu.models.linear_gaussian import linear_gaussian_ssm
-
-        params = self._net(key)
-        T = 4
-
-        def trans_lp(x, nx, t):
-            d = nx - x
-            return -0.5 * d * d - self.HALF_LOG_2PI
-
-        def obs_lp(nx, y, t):
-            d = y - nx
-            return -0.5 * d * d - self.HALF_LOG_2PI
-
-        ssm = attach_fused_guided_scalar_kernels(
-            linear_gaussian_ssm, params, T,
-            trans_logpdf_elem=trans_lp, obs_logpdf_elem=obs_lp,
-            block_r=8, interpret=True,
-        )
-        assert ssm.proposal_sample is not None
-        assert ssm.fused_hooks_guided
-        # fallback logpdf must match the trained net exactly
-        raw = nn.mlp_apply(params, jnp.asarray([0.3, -0.1, 2.0 / T]))
-        std = nn.softplus(raw[1])
-        want = (
-            -0.5 * ((0.5 - raw[0]) / std) ** 2
-            - jnp.log(std) - self.HALF_LOG_2PI
-        )
-        got = ssm.proposal_logpdf(0.5, 0.3, 2, -0.1)
-        np.testing.assert_allclose(float(got), float(want), rtol=1e-6)
-        # chunk=1: the guided slow path must run (and stay finite)
-        run = build_smc_run(ssm, 256, store_history=False)
-        ys = jnp.asarray(np.linspace(-1, 1, T), jnp.float32)
-        res = jax.jit(run)(key, ys)
-        assert np.isfinite(float(res.log_evidence))
-
-
-class TestGuidedDiscreteKernelInterpret:
-    """Fused guided discrete kernel: in-kernel categorical head must match
-    the smc_csis reference math.  interpret mode: u = 0, so the sampled
-    next state is always category 0."""
-
-    def _net(self, key, K=5, hidden=8):
-        from cpprob_tpu.inference import nn
-
-        return nn.mlp_init(key, [K + 2, hidden, hidden, K])
-
-    def test_matches_reference_math(self, key):
-        from cpprob_tpu.inference import nn
-
-        K, T = 5, 8
-        params = self._net(key, K)
-        ssm = attach_fused_guided_discrete_kernels(
-            TRANS5, MEANS5, STDS5, INIT5, params=params, T=T,
-            block_r=8, interpret=True,
-        )
-        n = 8 * 128
-        states = jnp.full((n,), 3, jnp.int32)
-        log_w = jnp.zeros((n,))
-        y, t = 0.5, jnp.int32(2)
-        s, w, ess, cat_w, lme = ssm.fused_step_exchange_batch(
-            jax.random.key(0), states, log_w, y, t,
-            jnp.int32(0), jnp.zeros((K - 1,), jnp.int32),
-        )
-        # reference: u=0 picks category 0
-        feats = jnp.concatenate([
-            jax.nn.one_hot(3, K), jnp.array([y]), jnp.array([2.0 / T]),
-        ])
-        raw = nn.mlp_apply(params, feats)
-        log_q0 = float(jax.nn.log_softmax(raw)[0])
-        lp = float(np.log(TRANS5[3, 0]))
-        log_g = (
-            -0.5 * ((y - MEANS5[0]) / STDS5[0]) ** 2
-            - np.log(STDS5[0]) - 0.5 * np.log(2 * np.pi)
-        )
-        expected = lp + log_g - log_q0
-        assert np.all(np.asarray(s) == 0)
-        np.testing.assert_allclose(np.asarray(w), expected, rtol=3e-4,
-                                   atol=3e-4)
-        np.testing.assert_allclose(
-            np.asarray(cat_w), [1.0, 0, 0, 0, 0], atol=1e-6
-        )
-
-    def test_rejects_wrong_net_or_k(self, key):
-        from cpprob_tpu.inference import nn
-
-        with pytest.raises(ValueError):
-            attach_fused_guided_discrete_kernels(
-                TRANS5, MEANS5, STDS5, INIT5,
-                params=nn.mlp_init(key, [3, 8, 8, 5]), T=8,
-            )
-        big = np.eye(9) * 0.5 + np.full((9, 9), 0.5 / 9)
-        big = big / big.sum(axis=1, keepdims=True)
-        with pytest.raises(ValueError):
-            attach_fused_guided_discrete_kernels(
-                big, np.zeros(9),
-                params=nn.mlp_init(key, [11, 8, 8, 9]), T=8,
-            )
-
+class TestGuidedDiscreteXLA:
     def test_xla_guided_fallback_statistical(self, key):
-        """Without the kernels (hooks stripped), the attached
-        proposal_sample/logpdf run the engine's guided slow path and the
-        evidence matches the exact forward recursion — validating the RN
-        math the kernel replicates."""
-        import dataclasses
-
-        from cpprob_tpu.inference.smc import build_smc_run
-        from cpprob_tpu.inference.smc_csis import train_ssm_proposal
-
+        """A trained per-step proposal installed with ``guide_ssm`` runs the
+        engine's guided path, and the evidence matches the exact forward
+        recursion (the RN weights stay exact)."""
         K, T = 5, 10
-        base = make_fused_discrete_ssm(TRANS5, MEANS5, STDS5, INIT5)
+        base = make_fused_discrete_ssm(TRANS5, MEANS5, STDS5, INIT5,
+                                       reference=True)
         params, _ = train_ssm_proposal(
             base, jax.random.key(0), T, kind="discrete", n_states=K,
             steps=200, batch_size=256, hidden=16,
         )
-        g = attach_fused_guided_discrete_kernels(
-            TRANS5, MEANS5, STDS5, INIT5, params=params, T=T,
-        )
-        g = dataclasses.replace(
-            g, fused_step_exchange_batch=None, fused_step_ess_batch=None,
-            fused_init_batch=None, fused_chunk_exchange_batch=None,
-            init_sample_batch=None, step_sample_batch=None,
-            obs_logpdf_batch=None, fused_hooks_guided=False,
-        )
+        g = guide_ssm(base, params, T, kind="discrete", n_states=K)
         rng = np.random.default_rng(1)
         z = rng.choice(K, p=INIT5)
         ys = []
@@ -502,129 +282,43 @@ class TestGuidedDiscreteKernelInterpret:
         assert abs(np.mean(lzs) - exact) < 0.1, (np.mean(lzs), exact)
 
 
-class TestScalarKernelInterpret:
-    def test_lg_chunk_deterministic(self):
-        """eps=0 in interpret mode: x stays put, weights accumulate the
-        emission logpdf exactly."""
-        from cpprob_tpu.models.linear_gaussian import linear_gaussian_ssm
-
-        half_log_2pi = 0.5 * np.log(2 * np.pi)
-
-        def step_elem(x, y, eps):
-            nx = x + eps
-            d = y - nx
-            return nx, -0.5 * d * d - half_log_2pi
-
-        ssm = attach_fused_scalar_kernels(
-            linear_gaussian_ssm, step_elem, block_r=8, interpret=True
-        )
-        n = 8 * 128
-        x0 = jnp.full((n,), 0.7)
-        log_w = jnp.zeros((n,))
-        ys = jnp.array([0.5, -0.25])
-        s, w, ess = ssm.fused_chunk_batch(
-            jax.random.key(0), x0, log_w, ys, jnp.int32(2)
-        )
-        expected = sum(
-            -0.5 * (y - 0.7) ** 2 - half_log_2pi for y in np.asarray(ys)
-        )
-        np.testing.assert_allclose(np.asarray(s), 0.7, rtol=1e-6)
-        np.testing.assert_allclose(np.asarray(w), expected, rtol=1e-5)
-        np.testing.assert_allclose(float(ess), n, rtol=1e-5)
-
-
 class TestSpecIslandInterior:
-    """island_every on the kernel-from-spec discrete family (r5): the
-    headline whole-sweep-with-live-ESS configuration for any user spec."""
+    """island_every on the kernel-from-spec discrete family: the
+    whole-sweep-with-live-ESS configuration for any user spec."""
+
+    TRANS2 = np.array([[0.8, 0.2], [0.3, 0.7]])
+
+    def _chunk(self, **kw):
+        ssm = make_fused_discrete_ssm(self.TRANS2, [-1.0, 1.0],
+                                      interpret=True, **kw)
+        ys = jnp.asarray(np.linspace(-1, 1, 8), jnp.float32)
+        return ssm.fused_chunk_exchange_batch(
+            jax.random.key(7), jnp.zeros((N,), jnp.int32),
+            jnp.zeros((N,), jnp.float32), ys, jnp.int32(8), jnp.int32(0),
+            jnp.zeros((1,), jnp.int32), partials=True)
 
     def test_off_matches_plain_bitwise(self):
-        from cpprob_tpu.ops.pallas_ssm import _discrete_chunk, _intern_spec
-
-        trans = np.array([[0.8, 0.2], [0.3, 0.7]])
-        key = _intern_spec(trans, np.array([-1.0, 1.0]),
-                           np.array([1.0, 1.0]), np.array([0.5, 0.5]))
-        n = 128 * 128
-        states = jnp.zeros((n,), jnp.int32)
-        log_w = jnp.zeros((n,), jnp.float32)
-        ys = jnp.asarray(np.linspace(-1, 1, 8), jnp.float32)
-        args = (jnp.int32(7), states, log_w, ys, jnp.int32(8), jnp.int32(0),
-                jnp.zeros((1,), jnp.int32))
-        kw = dict(spec_key=key, n_steps=8, block_r=128, interpret=True)
-        base = _discrete_chunk(*args, **kw)
+        base = self._chunk()
         # threshold 0: checks compiled in but never trigger
-        off = _discrete_chunk(*args, island_every=4, island_thresh=0.0, **kw)
+        off = self._chunk(island_every=4, island_thresh=0.0)
         np.testing.assert_array_equal(np.asarray(base[0]), np.asarray(off[0]))
         np.testing.assert_array_equal(np.asarray(base[1]), np.asarray(off[1]))
+        assert np.asarray(off.partials)[:, 5].max() == 0.0
 
     def test_forced_trigger_resets_block(self):
-        from cpprob_tpu.ops.pallas_ssm import _discrete_chunk, _intern_spec
-
-        trans = np.array([[0.8, 0.2], [0.3, 0.7]])
-        key = _intern_spec(trans, np.array([-1.0, 1.0]),
-                           np.array([1.0, 1.0]), np.array([0.5, 0.5]))
-        n = 128 * 128
-        states = jnp.zeros((n,), jnp.int32)
-        log_w = jnp.zeros((n,), jnp.float32)
-        ys = jnp.asarray(np.linspace(-1, 1, 8), jnp.float32)
-        s, w, ess, cat_w, lme = _discrete_chunk(
-            jnp.int32(7), states, log_w, ys, jnp.int32(8), jnp.int32(0),
-            jnp.zeros((1,), jnp.int32), spec_key=key, n_steps=8,
-            block_r=128, interpret=True, island_every=4, island_thresh=2.0)
-        w = np.asarray(w)
+        out = self._chunk(island_every=4, island_thresh=2.0)
+        w = np.asarray(out.log_weights)
         assert np.isfinite(w).all()
-        # interpret mode is deterministic: full ESS after the reset, and
-        # weights carry the preserved block log-mean (non-zero)
-        assert float(ess) == n
-        assert abs(w.max() - w.min()) < 1e-5
+        np.testing.assert_array_equal(np.asarray(out.partials)[:, 5],
+                                      [1.0, 1.0])
+        # every tile reset after step 4; its weights then share the
+        # tile's log-mean (non-zero: the tile's mass is kept)
+        base_w = np.asarray(self._chunk().log_weights)
+        assert np.ptp(w) < np.ptp(base_w)
         assert w.max() < 0.0
 
 
-class TestGuidedDiscreteIsland:
-    """island_every on the guided discrete kernel: correctness gates (the
-    measured configuration is a wash vs chunk=8 — the VMEM-stack-driven
-    block_r=128 requirement eats the launch savings — but the capability
-    must stay correct)."""
-
-    def _net(self):
-        from cpprob_tpu.inference import nn
-
-        return nn.mlp_init(jax.random.key(3), [4, 8, 8, 2])
-
-    def test_off_matches_plain_bitwise(self):
-        trans = np.array([[0.8, 0.2], [0.3, 0.7]])
-        params = self._net()
-        kw = dict(params=params, T=8, block_r=8, interpret=True)
-        base = attach_fused_guided_discrete_kernels(
-            trans, [-1.0, 1.0], [1.0, 1.0], [0.5, 0.5], **kw)
-        isl = attach_fused_guided_discrete_kernels(
-            trans, [-1.0, 1.0], [1.0, 1.0], [0.5, 0.5],
-            island_every=4, island_thresh=0.0, **kw)
-        n = 8 * 128
-        states = jnp.zeros((n,), jnp.int32)
-        log_w = jnp.zeros((n,), jnp.float32)
-        ys = jnp.asarray(np.linspace(-1, 1, 8), jnp.float32)
-        args = (jax.random.key(0), states, log_w, ys, jnp.int32(8),
-                jnp.int32(0), jnp.zeros((1,), jnp.int32), jnp.int32(0))
-        b = base.fused_chunk_exchange_t_batch(*args)
-        o = isl.fused_chunk_exchange_t_batch(*args)
-        np.testing.assert_array_equal(np.asarray(b[0]), np.asarray(o[0]))
-        np.testing.assert_array_equal(np.asarray(b[1]), np.asarray(o[1]))
-
-    def test_forced_trigger_resets_block(self):
-        trans = np.array([[0.8, 0.2], [0.3, 0.7]])
-        params = self._net()
-        isl = attach_fused_guided_discrete_kernels(
-            trans, [-1.0, 1.0], [1.0, 1.0], [0.5, 0.5],
-            params=params, T=8, block_r=8, interpret=True,
-            island_every=4, island_thresh=2.0)
-        n = 8 * 128
-        states = jnp.zeros((n,), jnp.int32)
-        log_w = jnp.zeros((n,), jnp.float32)
-        ys = jnp.asarray(np.linspace(-1, 1, 8), jnp.float32)
-        s, w, ess, cat_w, lme = isl.fused_chunk_exchange_t_batch(
-            jax.random.key(0), states, log_w, ys, jnp.int32(8),
-            jnp.int32(0), jnp.zeros((1,), jnp.int32), jnp.int32(0))
-        w = np.asarray(w)
-        assert np.isfinite(w).all()
-        assert float(ess) == n
-        assert abs(w.max() - w.min()) < 1e-5
+def test_builder_rejects_odd_island_every():
+    with pytest.raises(ValueError, match="even"):
+        make_fused_discrete_ssm(TRANS5, MEANS5, island_every=3,
+                                interpret=True)

@@ -9,8 +9,8 @@ import numpy as np
 import pytest
 from jax.sharding import PartitionSpec as P
 
-from cpprob_tpu.inference import resampling as local_resampling
-from cpprob_tpu.models import (
+from cpprob_jax.inference import resampling as local_resampling
+from cpprob_jax.models import (
     gaussian_posterior_analytic,
     gaussian_unknown_mean,
     kalman_filter_1d,
@@ -18,7 +18,7 @@ from cpprob_tpu.models import (
     hmm_ssm,
     HMM_MEANS,
 )
-from cpprob_tpu.parallel import (
+from cpprob_jax.parallel import (
     PARTICLE_AXIS,
     particle_mesh,
     sharded_systematic_ancestors,
@@ -72,7 +72,7 @@ def test_collective_8dev_matches_single_device_moments(mesh, devices8, key):
     """Statistical equivalence of the collective (ring-exchange) scheme across
     mesh sizes at moderate N: the SAME inference on an 8-device mesh and on a
     1-device mesh must give log-evidence and filtering means that agree within
-    Monte-Carlo error (VERDICT r1 weak-item 5 — cross-mesh evidence/moment
+    Monte-Carlo error (cross-mesh evidence/moment
     agreement, not just compilation)."""
     obs = jnp.asarray(
         np.random.RandomState(11).normal(0, 1.1, size=20), dtype=jnp.float32
@@ -191,8 +191,8 @@ def test_sharded_smc_exchange_requires_categories(mesh, key):
 def test_csis_infer_sharded(mesh, key):
     """Guided inference with particles sharded over the mesh: same posterior
     as the single-device path."""
-    from cpprob_tpu.inference.csis import CSIS
-    from cpprob_tpu.models import gaussian_unknown_mean_readme
+    from cpprob_jax.inference.csis import CSIS
+    from cpprob_jax.models import gaussian_unknown_mean_readme
 
     eng = CSIS(gaussian_unknown_mean_readme, (0.0, 0.0))
     params, _ = eng.compile(jax.random.key(0), steps=120, batch_size=128)
@@ -204,8 +204,8 @@ def test_csis_infer_sharded(mesh, key):
 def test_csis_compile_data_parallel(mesh):
     """DP training over the mesh: batch sharded, grads all-reduced by XLA;
     loss trajectory matches the expected convergence."""
-    from cpprob_tpu.inference.csis import CSIS
-    from cpprob_tpu.models import gaussian_unknown_mean_readme
+    from cpprob_jax.inference.csis import CSIS
+    from cpprob_jax.models import gaussian_unknown_mean_readme
 
     eng = CSIS(gaussian_unknown_mean_readme, (0.0, 0.0))
     params, losses = eng.compile(
@@ -217,12 +217,12 @@ def test_csis_compile_data_parallel(mesh):
 
 class TestRingResample:
     """ring_systematic_resample: exact equivalence with the materializing
-    collective resample (VERDICT r1 item 4 — O(N/shard) memory, 2^20 x 8)."""
+    collective resample (O(N/shard) memory, 2^20 x 8)."""
 
     def test_matches_materializing_path(self, devices8):
         import jax.numpy as jnp
         from jax.sharding import Mesh, PartitionSpec as P
-        from cpprob_tpu.parallel.resampling import (
+        from cpprob_jax.parallel.resampling import (
             ring_systematic_resample, sharded_systematic_ancestors,
         )
 
@@ -260,7 +260,7 @@ class TestRingResample:
         whole population across shard boundaries."""
         import jax.numpy as jnp
         from jax.sharding import Mesh, PartitionSpec as P
-        from cpprob_tpu.parallel.resampling import ring_systematic_resample
+        from cpprob_jax.parallel.resampling import ring_systematic_resample
 
         n, k = 1024, 8
         mesh = Mesh(devices8, ("particles",))
@@ -285,7 +285,7 @@ class TestRingResample:
 
 
 class TestBalancedResample:
-    """balanced_systematic_resample (VERDICT r3 item 2): the exact pod-viable
+    """balanced_systematic_resample: the exact scalable
     continuous-state scheme — O(bound) boundary comm, bitwise-equal to the
     exact ring scheme, exact-ring fallback on pathological imbalance."""
 
@@ -301,7 +301,7 @@ class TestBalancedResample:
 
     @pytest.mark.parametrize("spread", [0.5, 2.0, 4.0])
     def test_bitwise_matches_ring(self, devices8, spread):
-        from cpprob_tpu.parallel.resampling import (
+        from cpprob_jax.parallel.resampling import (
             balanced_systematic_resample, ring_systematic_resample,
         )
 
@@ -326,7 +326,7 @@ class TestBalancedResample:
         assert np.array_equal(np.asarray(ring), np.asarray(bal))
 
     def test_vector_and_tree_states(self, devices8):
-        from cpprob_tpu.parallel.resampling import (
+        from cpprob_jax.parallel.resampling import (
             balanced_systematic_resample, ring_systematic_resample,
         )
 
@@ -360,7 +360,7 @@ class TestBalancedResample:
     def test_pathological_imbalance_falls_back_exact(self, devices8):
         """All weight on one shard exceeds any small bound; the lax.cond
         fallback must still produce the exact ring population."""
-        from cpprob_tpu.parallel.resampling import (
+        from cpprob_jax.parallel.resampling import (
             balanced_systematic_resample, ring_systematic_resample,
         )
 
@@ -388,56 +388,44 @@ class TestBalancedResample:
                       & (np.asarray(bal) < 6 * n // 8))
 
 
-def test_sharded_smc_chunked_balanced(mesh, key):
-    """The pod-scale configuration: per-shard fused chunk hook + balanced
-    exact resampling at chunk boundaries.  The Pallas kernel needs TPU
-    hardware, so an XLA chunk implementation exercises the driver: evidence
-    must match the Kalman filter, and the balanced and collective schemes
-    must agree bit-for-bit."""
-    import dataclasses
+@pytest.mark.parametrize("impl", ["interpret", "reference"])
+def test_sharded_smc_fused_exchange(devices8, key, impl):
+    """The fused discrete kernel per shard under ``smc_sharded(chunk=)``:
+    the exchange resample forced at every chunk boundary (the last chunk
+    ragged), evidence against the exact forward recursion."""
+    from cpprob_jax.models import HMM_TRANS, discrete_hmm_log_evidence
+    from cpprob_jax.ops.pallas_ssm import make_fused_discrete_ssm
 
-    HALF_LOG_2PI = 0.9189385332046727
+    mesh4 = particle_mesh(devices=devices8[:4])
+    model = make_fused_discrete_ssm(HMM_TRANS, HMM_MEANS,
+                                    **{impl: True})
+    obs = jnp.asarray(np.linspace(-1.0, 1.0, 8), jnp.float32)
+    exact = discrete_hmm_log_evidence(HMM_TRANS, HMM_MEANS, np.ones(3),
+                                      np.full(3, 1 / 3), obs)
+    zs = []
+    for i in range(4):
+        res = smc_sharded(model, obs, 4 * 2048, jax.random.fold_in(key, i),
+                          mesh=mesh4, scheme="exchange", ess_threshold=1.0,
+                          chunk=4)
+        assert bool(np.asarray(res.resampled).all())
+        assert res.final_states.shape == (4 * 2048,)
+        zs.append(float(res.log_evidence))
+    se = np.std(zs, ddof=1) / 2.0
+    assert abs(np.mean(zs) - exact) < 4 * se + 0.05, (zs, exact)
 
-    def xla_chunk(key_, states, log_w, ys, n_valid):
-        def body(carry, inp):
-            x, w = carry
-            y, i = inp
-            eps = jax.random.normal(
-                jax.random.fold_in(key_, i), x.shape
-            )
-            nx = x + eps
-            d = y - nx
-            valid = i < n_valid
-            x = jnp.where(valid, nx, x)
-            w = jnp.where(valid, w + (-0.5 * d * d - HALF_LOG_2PI), w)
-            return (x, w), None
 
-        ts = jnp.arange(ys.shape[0], dtype=jnp.int32)
-        (x, w), _ = jax.lax.scan(body, (states, log_w), (ys, ts))
-        p = jax.nn.softmax(w)
-        return x, w, 1.0 / jnp.sum(p * p)
+def test_sharded_smc_fused_needs_exchange_and_hooks(mesh, key):
+    from cpprob_jax.models import HMM_TRANS
+    from cpprob_jax.ops.pallas_ssm import make_fused_discrete_ssm
 
-    ssm = dataclasses.replace(linear_gaussian_ssm, fused_chunk_batch=xla_chunk)
-    obs = jnp.asarray(
-        np.random.RandomState(12).normal(0, 1.2, size=25), dtype=jnp.float32
-    )
-    res_b = smc_sharded(
-        ssm, obs, 16384, key, mesh=mesh, scheme="balanced", chunk=4,
-        balance_bound=512,
-    )
-    res_c = smc_sharded(
-        ssm, obs, 16384, key, mesh=mesh, scheme="collective", chunk=4,
-    )
-    assert float(res_b.log_evidence) == float(res_c.log_evidence)
-    assert np.array_equal(
-        np.asarray(res_b.final_states), np.asarray(res_c.final_states)
-    )
-    assert bool(np.asarray(res_b.resampled).any())
-    _, _, ll = kalman_filter_1d(obs)
-    assert abs(float(res_b.log_evidence) - float(ll)) < 0.2
-
-    with pytest.raises(ValueError):
-        smc_sharded(linear_gaussian_ssm, obs, 16384, key, mesh=mesh, chunk=4)
+    obs = jnp.zeros((8,), jnp.float32)
+    fused = make_fused_discrete_ssm(HMM_TRANS, HMM_MEANS, reference=True)
+    with pytest.raises(ValueError, match="exchange"):
+        smc_sharded(fused, obs, 8 * 1024, key, mesh=mesh, scheme="balanced",
+                    chunk=4)
+    with pytest.raises(ValueError, match="fused"):
+        smc_sharded(hmm_ssm, obs, 8 * 1024, key, mesh=mesh,
+                    scheme="exchange", chunk=4)
 
 
 def test_sharded_smc_balanced_bitwise_matches_collective(mesh, key):
@@ -461,3 +449,31 @@ def test_sharded_smc_balanced_bitwise_matches_collective(mesh, key):
     assert bool(np.asarray(res_b.resampled).any())
     _, _, ll = kalman_filter_1d(obs)
     assert abs(float(res_b.log_evidence) - float(ll)) < 0.15
+
+
+@pytest.mark.parametrize("scheme", ["balanced", "materializing"])
+def test_sharded_offspring_exact_above_float32_range(devices8, scheme):
+    """2^25 particles over 4 shards: every particle's offspring count is the
+    floor or ceiling of its expected count, where a float32 comb merges
+    neighbouring slots and drops the comb offset."""
+    from cpprob_jax.parallel.resampling import balanced_systematic_resample
+
+    n = 1 << 25
+    mesh4 = particle_mesh(devices=devices8[:4])
+    lw = jax.random.normal(jax.random.key(5), (n,))
+    ids = jnp.arange(n, dtype=jnp.int32)
+
+    def body(lw_l, ids_l):
+        if scheme == "balanced":
+            return balanced_systematic_resample(jnp.float32(0.37), lw_l,
+                                                ids_l, PARTICLE_AXIS)
+        return sharded_systematic_ancestors(jnp.float32(0.37), lw_l,
+                                            PARTICLE_AXIS)
+
+    out = jax.jit(jax.shard_map(
+        body, mesh=mesh4, in_specs=(P(PARTICLE_AXIS),) * 2,
+        out_specs=P(PARTICLE_AXIS), check_vma=False))(lw, ids)
+    counts = np.bincount(np.asarray(out), minlength=n)
+    w = np.exp(np.asarray(lw, np.float64))
+    expected = n * w / w.sum()
+    assert np.all(np.abs(counts - expected) < 1.0 + 1e-5 * expected)

@@ -7,8 +7,8 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from cpprob_tpu.inference import csmc_sweep, particle_gibbs
-from cpprob_tpu.models.hmm import hmm_exact_posterior, hmm_ssm
+from cpprob_jax.inference import csmc_sweep, particle_gibbs
+from cpprob_jax.models.hmm import hmm_exact_posterior, hmm_ssm
 
 
 @pytest.fixture(scope="module")

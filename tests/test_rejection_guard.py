@@ -15,11 +15,11 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-import cpprob_tpu as ct
-from cpprob_tpu.core import handlers
-from cpprob_tpu.inference import nn
-from cpprob_tpu.inference.csis import CSIS, make_proposal_dist
-from cpprob_tpu.models import normal_rejection_sampling_guard
+import cpprob_jax as ct
+from cpprob_jax.core import handlers
+from cpprob_jax.inference import nn
+from cpprob_jax.inference.csis import CSIS, make_proposal_dist
+from cpprob_jax.models import normal_rejection_sampling_guard
 
 
 def _accept_gt1(x):

@@ -6,10 +6,10 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-import cpprob_tpu as ct
-from cpprob_tpu.core import handlers
-from cpprob_tpu.inference.csis import CSIS
-from cpprob_tpu.models import (
+import cpprob_jax as ct
+from cpprob_jax.core import handlers
+from cpprob_jax.inference.csis import CSIS
+from cpprob_jax.models import (
     CHANNEL_MOMENTA,
     calo_simulation,
     sherpa_calorimeter_wrapper,
@@ -109,7 +109,7 @@ class TestCalorimeter:
 
 class TestObsEmbeddings:
     def _tiny_model(self):
-        from cpprob_tpu.distributions import Normal
+        from cpprob_jax.distributions import Normal
 
         def m(y):
             mu = ct.sample(Normal(0.0, 1.0), addr="mu")
@@ -128,7 +128,7 @@ class TestObsEmbeddings:
         assert float(res.ess) > 100
 
     def test_cnn3d_obs_embedding(self, key):
-        from cpprob_tpu.distributions import Normal
+        from cpprob_jax.distributions import Normal
 
         def m(vol):
             mu = ct.sample(Normal(0.0, 1.0), addr="mu")

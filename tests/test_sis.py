@@ -8,8 +8,8 @@ import numpy as np
 
 import pytest
 
-import cpprob_tpu as ct
-from cpprob_tpu.models import (
+import cpprob_jax as ct
+from cpprob_jax.models import (
     all_distr,
     gaussian_2d_unknown_mean,
     gaussian_posterior_analytic,
@@ -137,7 +137,7 @@ def test_ess_and_stats_printer(key):
 
 
 def test_streaming_matches_batch(key):
-    from cpprob_tpu.inference.sis import sis_streaming
+    from cpprob_jax.inference.sis import sis_streaming
 
     res = ct.sis(gaussian_unknown_mean_readme, (3.0, 4.0), 65536, key)
     stream = sis_streaming(
@@ -158,7 +158,7 @@ def test_streaming_matches_batch(key):
 
 
 def test_streaming_hmm_vector_predicts(key):
-    from cpprob_tpu.inference.sis import sis_streaming
+    from cpprob_jax.inference.sis import sis_streaming
 
     obs = np.array([0.9, 0.8, -1.0], np.float32)
     res = ct.sis(hmm, (obs,), 16384, key)
@@ -169,7 +169,7 @@ def test_streaming_hmm_vector_predicts(key):
 
 
 def test_streaming_checkpointed_matches_and_resumes(key, tmp_path):
-    from cpprob_tpu.inference.sis import (
+    from cpprob_jax.inference.sis import (
         sis_streaming,
         sis_streaming_checkpointed,
     )
@@ -230,7 +230,7 @@ def test_streaming_checkpointed_matches_and_resumes(key, tmp_path):
 def test_streaming_checkpointed_rejects_mismatched_shape(key, tmp_path):
     import pytest as _pytest
 
-    from cpprob_tpu.inference.sis import sis_streaming_checkpointed
+    from cpprob_jax.inference.sis import sis_streaming_checkpointed
 
     dump = str(tmp_path / "p.npz")
     sis_streaming_checkpointed(

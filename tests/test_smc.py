@@ -5,9 +5,9 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-from cpprob_tpu.inference import resampling
-from cpprob_tpu.inference.smc import smc
-from cpprob_tpu.models import (
+from cpprob_jax.inference import resampling
+from cpprob_jax.inference.smc import smc
+from cpprob_jax.models import (
     hmm_exact_posterior,
     hmm_ssm,
     kalman_filter_1d,

@@ -6,8 +6,8 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from cpprob_tpu.distributions import LogNormal, Normal
-from cpprob_tpu.inference.smc2 import ParamSSM, smc2
+from cpprob_jax.distributions import LogNormal, Normal
+from cpprob_jax.inference.smc2 import ParamSSM, smc2
 
 
 def _kalman_ll(observations, r):

@@ -5,10 +5,10 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-import cpprob_tpu as ct
-from cpprob_tpu.distributions import Beta, Bernoulli, Normal
-from cpprob_tpu.inference.smc_sampler import smc_sampler
-from cpprob_tpu.models import gaussian_unknown_mean_readme
+import cpprob_jax as ct
+from cpprob_jax.distributions import Beta, Bernoulli, Normal
+from cpprob_jax.inference.smc_sampler import smc_sampler
+from cpprob_jax.models import gaussian_unknown_mean_readme
 
 
 def test_conjugate_gaussian_posterior_and_evidence(key):

@@ -13,13 +13,13 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-from cpprob_tpu.inference.resampling import (
-    _normalized_cumsum,
+from cpprob_jax.inference.resampling import (
+    fill_ancestors,
     sorted_systematic_resample_values,
-    systematic_ancestors_from_cdf,
+    systematic_starts,
 )
-from cpprob_tpu.inference.smc import build_smc_run
-from cpprob_tpu.models.linear_gaussian import (
+from cpprob_jax.inference.smc import build_smc_run
+from cpprob_jax.models.linear_gaussian import (
     kalman_filter_1d,
     linear_gaussian_ssm,
 )
@@ -42,7 +42,8 @@ def test_matches_sorted_ancestors_gather():
         new = sorted_systematic_resample_values(key, log_w, states)
         ss, slw = jax.lax.sort((states, log_w), num_keys=1)
         u0 = jax.random.uniform(key, ())
-        anc = systematic_ancestors_from_cdf(_normalized_cumsum(slw), u0, n)
+        anc = fill_ancestors(
+            systematic_starts(jnp.exp(slw - jnp.max(slw)), u0, n), n)
         np.testing.assert_array_equal(np.asarray(new), np.asarray(ss[anc]))
         assert bool(jnp.all(jnp.diff(new) >= 0))
 

@@ -9,15 +9,15 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-import cpprob_tpu as ct
-from cpprob_tpu.inference.csis import CSIS
-from cpprob_tpu.io.tracefile import (
+import cpprob_jax as ct
+from cpprob_jax.inference.csis import CSIS
+from cpprob_jax.io.tracefile import (
     TraceLoader,
     dump_traces,
     native_available,
     write_trace_shard,
 )
-from cpprob_tpu.models import gaussian_unknown_mean_readme
+from cpprob_jax.models import gaussian_unknown_mean_readme
 
 
 @pytest.fixture(scope="module")
@@ -99,8 +99,8 @@ def test_offline_csis_training(tmp_path, key):
 def test_native_posterior_parser(tmp_path, key):
     import ctypes
 
-    from cpprob_tpu.io import dump_posterior
-    from cpprob_tpu.io.tracefile import _load_native
+    from cpprob_jax.io import dump_posterior
+    from cpprob_jax.io.tracefile import _load_native
 
     res = ct.sis(gaussian_unknown_mean_readme, (3.0, 4.0), 300, key)
     path = str(tmp_path / "post")
